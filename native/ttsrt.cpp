@@ -1,11 +1,11 @@
 // ttsrt — native host-side streaming runtime for qwen3_tts_tpu.
 //
-// TPU-native counterpart of the reference's host runtime machinery: the
+// Counterpart of the reference's host runtime machinery: the
 // decoder-thread + mpsc channel pipeline (reference src/tts/engine.rs:487-543),
 // its 64-code chunk batching with remainder carry and [0,2047] clamping
 // (engine.rs:510-537), f32->s16 WAV emission (src/utils/audio.rs:26-41), and
 // — new surface — a continuous-batching slot manager for multi-stream
-// serving. The TPU compute path stays in XLA; this library is the
+// serving. The device compute path stays in XLA; this library is the
 // lock-minimal data path between device outputs and audio sinks so the
 // Python dispatch thread never blocks on audio I/O.
 //

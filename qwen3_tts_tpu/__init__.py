@@ -1,4 +1,4 @@
-"""qwen3_tts_tpu — TPU-native Qwen3-TTS framework (JAX / XLA / Pallas).
+"""qwen3_tts_tpu — Qwen3-TTS framework in JAX / XLA.
 
 Public facade mirroring the reference library surface (`src/lib.rs:10-20`):
 TtsEngine, SamplerConfig, PromptBuilder, AudioSample, Tokenizer, VoiceFile,

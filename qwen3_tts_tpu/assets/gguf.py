@@ -49,7 +49,7 @@ def dequant_q8_0(raw: bytes, count: int) -> np.ndarray:
     """llama.cpp Q8_0: blocks of 32 int8 values scaled by one f16.
 
     The reference never dequantises on the host (llama.cpp does it on GPU);
-    we dequantise at load time — TPU compute stays bf16 with optional int8
+    we dequantise at load time — device compute stays bf16 with optional int8
     re-quantisation handled by the kernel layer.
     """
     n_blocks = count // _Q8_0_BLOCK

@@ -1,6 +1,6 @@
 """Embedding tables + projection ("assets") as device arrays.
 
-TPU-native counterpart of the reference `Assets`
+Counterpart of the reference `Assets`
 (`src/assets_manager.rs:5-461`): the text table [151936, 2048], the 16 codec
 codebook tables (stacked [16, rows, 2048]), and the 2048->1024 projection.
 Lookups are `jnp.take`; the projection is a single matmul; everything is

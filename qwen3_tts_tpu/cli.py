@@ -3,7 +3,7 @@
 Flag surface mirrors the reference binary (`src/bin/qwen3_tts.rs:8-74`):
 model dir / quant, text, voice-file, ref-audio + ref-text + save-voice,
 output, max-steps, speakers-dir, speaker, instruction, temperature / top-k /
-top-p / seed — plus TPU-framework extras (--stream, --lang-id,
+top-p / seed — plus extras (--stream, --lang-id,
 --random-weights for weightless smoke runs, --profile).
 
 Run: python -m qwen3_tts_tpu.cli --text "..." [--speaker vivian]
@@ -19,7 +19,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="qwen3-tts",
-        description="TPU-native Qwen3-TTS (JAX/XLA/Pallas)",
+        description="Qwen3-TTS in JAX",
     )
     p.add_argument("--model-dir", default="models",
                    help="directory with assets + checkpoints")
@@ -65,11 +65,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tiny model geometry (CI smoke)")
     p.add_argument("--profile", default=None,
                    help="write a jax.profiler trace to this directory")
-    p.add_argument("--compile-cache", default=None, metavar="DIR",
-                   help="persistent XLA compilation cache directory "
-                        "(default ~/.cache/qwen3_tts_tpu/xla; 'off' "
-                        "disables) — a restarted process skips the "
-                        "multi-second jit compile")
+    p.add_argument("--compile-cache", default="on", choices=("on", "off"),
+                   help="persistent XLA compilation cache in "
+                        "$JAX_COMPILATION_CACHE_DIR, else <repo>/.jax_cache "
+                        "— a restarted process skips the jit compile")
     return p
 
 
@@ -85,7 +84,7 @@ def main(argv=None) -> int:
         import dataclasses
         config = dataclasses.replace(config, lang_id=args.lang_id)
 
-    print(f"=== Qwen3-TTS (TPU) ===\nModel Dir: {args.model_dir}\n"
+    print(f"=== Qwen3-TTS ===\nModel Dir: {args.model_dir}\n"
           f"Text:      {args.text}")
 
     # download/verify model assets before engine construction, mirroring
@@ -102,16 +101,13 @@ def main(argv=None) -> int:
                   + "\n  ".join(bad), file=sys.stderr)
 
     try:
-        if args.compile_cache not in (None, "off"):
-            from .tts.engine import enable_compilation_cache
-            enable_compilation_cache(args.compile_cache)
         engine = TtsEngine(
             model_dir=None if args.random_weights else args.model_dir,
             config=config,
             quant=args.quant,
             random_weights=args.random_weights,
             speakers_dir=args.speakers_dir,
-            compile_cache=args.compile_cache != "off",
+            compile_cache=args.compile_cache == "on",
         )
     except (FileNotFoundError, ValueError) as e:
         print(f"Failed to load models: {e}", file=sys.stderr)

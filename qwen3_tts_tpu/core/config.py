@@ -41,7 +41,7 @@ class TalkerConfig:
     # sections stay configurable for checkpoints that ship real metadata.
     mrope_sections: Tuple[int, int, int, int] = (24, 20, 20, 0)
     dtype: str = "bfloat16"
-    # layer-scan unroll factor (measured slower >1 on v5e; kept as a knob)
+    # layer-scan unroll factor
     scan_unroll: int = 1
     # TP head interleave: wqkv columns permuted into this many device
     # blocks [q_d | k_d | v_d] so GSPMD's contiguous column shards align
@@ -78,7 +78,7 @@ class PredictorConfig:
     # all rotary freqs on the temporal stream.
     mrope_sections: Tuple[int, int, int, int] = (64, 0, 0, 0)
     dtype: str = "bfloat16"
-    # layer-scan unroll factor (measured slower >1 on v5e; kept as a knob)
+    # layer-scan unroll factor
     scan_unroll: int = 1
     # TP head interleave: wqkv columns permuted into this many device
     # blocks [q_d | k_d | v_d] so GSPMD's contiguous column shards align

@@ -9,7 +9,7 @@ callback, `.part` resume (HTTP Range), bounded retries, and sha256
 verification against a `checksums.json` sidecar when one is present.
 
 The reference's second layer — fetching llama.cpp/onnxruntime *runtime
-binaries* (`src/download.rs:103-241`) — disappears entirely on TPU: there is
+binaries* (`src/download.rs:103-241`) — disappears entirely here: there is
 no native runtime to ship, XLA is the runtime.
 
 Network access is optional at import and call time: in hermetic/zero-egress

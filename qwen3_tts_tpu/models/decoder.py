@@ -1,14 +1,14 @@
 """Qwen3-style decoder shared by the talker and the predictor.
 
-TPU-native replacement for the two GGUF transformers the reference runs
+Replacement for the two GGUF transformers the reference runs
 inside llama.cpp (`src/models/llama/mod.rs`): embedding *inputs* (never token
 ids), RMSNorm + QK-norm, GQA with M-RoPE, SwiGLU MLP, final norm + dense head.
 Layer weights are stacked on a leading axis and executed with `lax.scan`, so
 the whole decode step is one compiled program regardless of depth.
 
-Decode-step performance choices (each ~ms-level on the flagship talker):
+Decode-step design choices:
   * QKV and gate/up projections are FUSED single matmuls (`wqkv`, `w_gu`) —
-    half the op count per layer, bigger MXU tiles at M=1;
+    half the op count per layer;
   * the stacked KV cache [L, B, n_kv, T, hd] is a scan CARRY updated in
     place at (layer, row, slot) — no per-layer cache copies;
   * `head_slice` computes only a dynamic column slice of the output head
@@ -32,7 +32,7 @@ import jax
 import jax.numpy as jnp
 
 from ..core.config import PredictorConfig, TalkerConfig
-from ..ops import attention, flash_decode, rope
+from ..ops import attention, rope
 from ..ops.quant import linear
 
 DecoderParams = Dict[str, Any]
@@ -40,10 +40,7 @@ Config = TalkerConfig | PredictorConfig
 
 
 def rms_norm(x: jax.Array, scale: jax.Array, eps: float) -> jax.Array:
-    # single-rounding form: all f32 math, ONE cast to the model dtype. With
-    # --xla_allow_excess_precision XLA elides intermediate low-precision
-    # casts anyway; writing the single-rounding form makes the XLA path and
-    # the Pallas kernels (which honor casts as written) bit-identical.
+    # single-rounding form: all f32 math, ONE cast to the model dtype
     xf = x.astype(jnp.float32)
     var = jnp.mean(xf * xf, axis=-1, keepdims=True)
     return (xf * jax.lax.rsqrt(var + eps)
@@ -78,7 +75,7 @@ def init_decoder(key: jax.Array, cfg: Config, scale: float = 0.02) -> DecoderPar
 def init_kv_cache(cfg: Config, batch: int, dtype=None,
                   length: int | None = None) -> Dict[str, jax.Array]:
     """Head-major layout [L, B, n_kv, T, hd]: per-head cache slices are
-    contiguous, which both the dense path and the flash-decode DMA want.
+    contiguous.
 
     `length` overrides cfg.max_seq — generation paths size the cache to
     the actual prompt+budget extent (a decode stream needs nowhere near
@@ -156,12 +153,6 @@ def forward(
     nq, nk, hd = cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
     cache_len = jnp.asarray(cache_len, jnp.int32)
     kv_len = cache_len + S
-    # Single-token decode on TPU uses the Pallas flash-decode kernel: HBM
-    # traffic scales with the valid cache prefix instead of max_seq, and the
-    # pre-update-cache formulation avoids read-after-write copies of the
-    # carried cache at any batch size.
-    use_flash = S == 1 and flash_decode.usable(
-        cfg, cache_window=cache["k"].shape[3])
 
     pos4 = rope.mrope_positions(positions)
     cos, sin = rope.rope_angles(pos4, cfg.mrope_sections, hd, cfg.rope_theta)
@@ -192,40 +183,22 @@ def forward(
         k = rms_norm(k, lw["k_norm"], cfg.rms_eps)
         q = rope.apply_rope(q, cos, sin)
         k = rope.apply_rope(k, cos, sin)
-        if use_flash:
-            # stacked-cache kernel over the PRE-update cache: the current
-            # token's k/v go straight into VMEM, so the cache write below
-            # has no read-after-write hazard and never forces a copy of the
-            # carried buffers; HBM reads cover only ceil(cache_len/BLK)
-            # blocks of the valid prefix.
-            valid_from = (kv_valid_from if kv_valid_from is not None
-                          else jnp.zeros((B,), jnp.int32))
-            attn = flash_decode.decode_attention_stacked(
-                q[:, 0], k_all, v_all, k[:, 0], v[:, 0], layer_idx,
-                jnp.broadcast_to(cache_len, (B,)), valid_from,
-            )[:, None]
-            k_all = _write_layer_cache(k_all, k, layer_idx, cache_len)
-            v_all = _write_layer_cache(v_all, v, layer_idx, cache_len)
-        else:
-            k_all = _write_layer_cache(k_all, k, layer_idx, cache_len)
-            v_all = _write_layer_cache(v_all, v, layer_idx, cache_len)
-            k_cache = jax.lax.dynamic_index_in_dim(k_all, layer_idx, 0,
-                                                   keepdims=False)
-            v_cache = jax.lax.dynamic_index_in_dim(v_all, layer_idx, 0,
-                                                   keepdims=False)
-            attn = attention.gqa_attention(
-                q, k_cache, v_cache, cache_len, kv_len, kv_valid_from
-            )
+        k_all = _write_layer_cache(k_all, k, layer_idx, cache_len)
+        v_all = _write_layer_cache(v_all, v, layer_idx, cache_len)
+        k_cache = jax.lax.dynamic_index_in_dim(k_all, layer_idx, 0,
+                                               keepdims=False)
+        v_cache = jax.lax.dynamic_index_in_dim(v_all, layer_idx, 0,
+                                               keepdims=False)
+        attn = attention.gqa_attention(
+            q, k_cache, v_cache, cache_len, kv_len, kv_valid_from
+        )
         h = h + linear(attn.reshape(B, S, nq * hd), lw["wo"])
         # --- MLP block (SwiGLU, fused gate+up) ---
         m_in = rms_norm(h, lw["ln2"], cfg.rms_eps)
         gu = linear(m_in, lw["w_gu"])
         F = gu.shape[-1] // 2
         # silu in f32 with a SINGLE rounding to the model dtype: jax.nn.silu
-        # on bf16 rounds the sigmoid and the product separately, which is
-        # both less accurate and diverges from the fused Pallas kernels
-        # (ops/fused_predictor.py, ops/fused_talker.py) that this path must
-        # A/B against.
+        # on bf16 rounds the sigmoid and the product separately
         gu32 = gu.astype(jnp.float32)
         act = (gu32[..., :F] / (1.0 + jnp.exp(-gu32[..., :F]))
                * gu32[..., F:]).astype(gu.dtype)

@@ -1,6 +1,6 @@
 """Audio codec encoder + speaker encoder (voice-cloning front-ends).
 
-TPU-native implementations of the reference's two ONNX sessions
+Implementations of the reference's two ONNX sessions
 (`src/models/onnx.rs:82-163`), with architectures DERIVED from the codec
 structure the decoder pins down rather than invented freely:
 
@@ -13,7 +13,7 @@ structure the decoder pins down rather than invented freely:
     downsampling stack (kernel == stride: pure matmuls, the mirror image
     of the vocoder's upsampler) -> bidirectional transformer -> 512-d
     latent projection -> greedy residual quantization (distance argmin as
-    a matmul, MXU-friendly).
+    a matmul).
 
   * SpeakerEncoder — waveform -> log-mel [F,128] (models/mel.py, the
     hand-rolled librosa-aligned frontend of src/models/onnx.rs:167-320)

@@ -1,6 +1,6 @@
 """Predictor: per-frame autoregressive codebook expansion.
 
-TPU-native replacement for the reference's 16 sequential llama.cpp FFI calls
+Replacement for the reference's 16 sequential llama.cpp FFI calls
 per frame (`src/tts/engine.rs:564-611`): the KV clear, the 2-token prefill
 `[proj(talker_hidden), codec_emb_1024(0, code_0)]`, and the 15 greedy
 single-token decodes all live inside ONE compiled program — a `lax.scan` over
@@ -72,6 +72,35 @@ def frame_codes(
         [code_0[:, None], jnp.moveaxis(codes_rest, 0, 1)], axis=1)
 
 
+def teacher_forced_logits(
+    params: decoder.DecoderParams,
+    cfg: PredictorConfig,
+    assets: Assets,
+    talker_hidden_1024: jax.Array,   # [B, 1024]
+    codes: jax.Array,                # [B, 16] int32 (code_0 + 15 inputs)
+) -> jax.Array:
+    """Codebook-q logits for q=1..15 given the frame's codes as inputs:
+    one parallel pass over [h1024, emb(0,c_0), .., emb(14,c_14)]. Returns
+    float32 [B, 15, 2048]; the argmax at q equals frame_codes' code q when
+    codes[:, 1:q] are frame_codes' own codes."""
+    B = codes.shape[0]
+    NB = protocol.NUM_CODEBOOKS
+    CV = protocol.CODE_VOCAB
+    q_idx = jnp.arange(NB - 1, dtype=jnp.int32)               # 0..14
+    pos = jnp.broadcast_to(jnp.arange(NB, dtype=jnp.int32)[None], (B, NB))
+    # emb(15, *) feeds nothing we read
+    embs = assets.codec_embedding_1024(q_idx[None], codes[:, : NB - 1])
+    x = jnp.concatenate([talker_hidden_1024[:, None], embs], axis=1)
+    cache = decoder.init_kv_cache(cfg, B, length=NB)
+    h, _, _ = decoder.forward(
+        params, cfg, x.astype(jnp.dtype(cfg.dtype)), pos, cache,
+        jnp.int32(0), with_logits=False)
+    # static loop: 15 head column slices
+    return jnp.stack(
+        [decoder.head_logits(params, h[:, q], jnp.int32((q - 1) * CV), CV)
+         for q in range(1, NB)], axis=1)
+
+
 def frame_codes_jacobi(
     params: decoder.DecoderParams,
     cfg: PredictorConfig,
@@ -99,7 +128,7 @@ def frame_codes_jacobi(
     The natural draft in the generation loop is the PREVIOUS frame's
     codes (speech codecs are temporally continuous); acceptance — and
     hence the speedup — is a property of real weights, so the loop keeps
-    the AR/fused path by default (QWEN3_TTS_PRED_JACOBI=1 opts in).
+    the AR scan by default (QWEN3_TTS_PRED_JACOBI=1 opts in).
 
     Technique family: Jacobi / parallel decoding of AR chains, as applied
     to codec-token speech synthesis in the retrieved literature
@@ -109,30 +138,15 @@ def frame_codes_jacobi(
     """
     B = code_0.shape[0]
     NB = protocol.NUM_CODEBOOKS
-    CV = protocol.CODE_VOCAB
     if draft is None:
         draft = jnp.zeros((B, NB - 1), jnp.int32)
     codes0 = jnp.concatenate([code_0[:, None],
                               jnp.asarray(draft, jnp.int32)], axis=1)
-    q_idx = jnp.arange(NB - 1, dtype=jnp.int32)               # 0..14
-    pos = jnp.broadcast_to(jnp.arange(NB, dtype=jnp.int32)[None], (B, NB))
 
     def one_pass(codes):
-        # X = [h1024, emb(0,c0), emb(1,d1), .., emb(14,d14)]  (emb(15,*)
-        # feeds nothing we read)
-        embs = assets.codec_embedding_1024(
-            q_idx[None], codes[:, : NB - 1])                  # [B, 15, 1024]
-        x = jnp.concatenate([talker_hidden_1024[:, None], embs], axis=1)
-        cache = decoder.init_kv_cache(cfg, B, length=NB)
-        h, _, _ = decoder.forward(
-            params, cfg, x.astype(jnp.dtype(cfg.dtype)), pos, cache,
-            jnp.int32(0), with_logits=False)
-        preds = []
-        for q in range(1, NB):     # static loop: 15 head column slices
-            sl = decoder.head_logits(params, h[:, q],
-                                     jnp.int32((q - 1) * CV), CV)
-            preds.append(jnp.argmax(sl, axis=-1).astype(jnp.int32))
-        return jnp.stack(preds, axis=1)                       # [B, 15]
+        return jnp.argmax(teacher_forced_logits(
+            params, cfg, assets, talker_hidden_1024, codes),
+            axis=-1).astype(jnp.int32)                        # [B, 15]
 
     def cond(carry):
         codes, verified, it = carry

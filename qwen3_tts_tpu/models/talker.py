@@ -19,7 +19,6 @@ import jax
 import jax.numpy as jnp
 
 from ..core.config import TalkerConfig
-from ..ops import fused_talker
 from . import decoder
 
 
@@ -52,18 +51,7 @@ def step(
 ) -> Tuple[jax.Array, jax.Array, Dict[str, jax.Array]]:
     """One autoregressive talker step. Returns (hidden [B,H], logits [B,vocab],
     cache)."""
-    B = feedback.shape[0]
     slot = jnp.asarray(slot, jnp.int32)
-    if fused_talker.usable(cfg, B, params,
-                           cache_window=cache["k"].shape[3]):
-        # whole decode step in ONE Pallas launch (ops/fused_talker.py);
-        # QWEN3_TTS_NO_FUSED_TALKER=1 forces the XLA path below
-        slot_b = jnp.broadcast_to(slot, (B,))
-        h, logits, k, v = fused_talker.talker_step_fused(
-            params, cfg, feedback, slot_b - pad_offset, slot, slot_b,
-            pad_offset, cache["k"], cache["v"],
-        )
-        return h, logits, {"k": k, "v": v}
     positions = (slot - pad_offset)[:, None]                          # [B, 1]
     h, logits, cache = decoder.forward(
         params, cfg, feedback[:, None], positions, cache, slot,

@@ -1,6 +1,6 @@
 """Streaming vocoder: 16-codebook frames -> 24 kHz waveform.
 
-TPU-native implementation of the reference's stateful ONNX codec decoder
+Implementation of the reference's stateful ONNX codec decoder
 (`src/models/onnx.rs:324-496`). The architecture is DERIVED from the only
 ground truth available in this container — the graph's carried-state
 signature and call contract — not invented freely:
@@ -37,7 +37,7 @@ Pipeline (all shapes [B, ...]; reference is B=1):
       pending latents = latent_buffer)--> [B,N+LA,1024]
     --causal conv (K=3, history=conv_history)--> [B,N+LA,1024]
     --frame-local transposed-conv stack (strides 5,5,5,4,4 == 2000x,
-      kernel==stride => pure matmuls on the MXU, no carried state)--> wav
+      kernel==stride => pure matmuls, no carried state)--> wav
 
 `valid_samples` falls out of the lookahead: a non-final call emits
 N - max(LA - frames_done, 0) frames (the first call withholds LA frames;
@@ -143,8 +143,8 @@ def with_dtype(params: Dict[str, Any], cfg: VocoderConfig) -> Dict[str, Any]:
     """Cast the transformer trunk to cfg.dtype.
 
     The trunk carries ~90% of the vocoder FLOPs (8L x 1024h x 4096F over
-    every frame); in f32 it runs at 1/4 MXU rate. bf16 is the TPU serving
-    configuration (pair with dataclasses.replace(cfg, dtype='bfloat16')).
+    every frame); bf16 runs it on the tensor cores at the bf16 rate (pair
+    with dataclasses.replace(cfg, dtype='bfloat16')).
     The conv stacks / upsampler / carried conv state stay f32: they are a
     small FLOP share and keep the streaming-contract math unchanged."""
     dt = jnp.dtype(cfg.dtype)
@@ -421,7 +421,7 @@ def _upsample(params, cfg: VocoderConfig, lat: jax.Array) -> jax.Array:
     Each stage is a transposed conv with kernel == stride, i.e. a single
     matmul [.., C_in] @ [C_in, s*C_out] followed by a reshape that
     interleaves the s output positions — the whole 2000x upsampling runs on
-    the MXU with zero HBM-bound conv windows and zero carried state."""
+    matmuls with zero HBM-bound conv windows and zero carried state."""
     B, M, _ = lat.shape
     z = lat
     n = len(params["up"])
@@ -569,7 +569,7 @@ def decode(
     new_pre = pre_in[..., -(kp - 1):] if kp > 1 else state.pre_conv_history
 
     # 3. transformer with carried KV (global positions = frames_done + i);
-    # the trunk runs in cfg.dtype (f32 default; bf16 for TPU serving)
+    # the trunk runs in cfg.dtype (f32 default; bf16 via with_dtype)
     tcfg = transformer_config(cfg)
     h_in = jnp.swapaxes(y, 1, 2).astype(jnp.dtype(cfg.dtype))  # [B,N,hidden]
     pos = state.frames_done[:, None] + jnp.arange(N, dtype=jnp.int32)[None]

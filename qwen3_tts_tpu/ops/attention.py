@@ -2,11 +2,10 @@
 
 Reference behavior being replaced: llama.cpp flash attention over its own KV
 cache (`src/models/llama/mod.rs:415` flash_attn_type=1). Here the cache is a
-preallocated device buffer `[n_layers, B, max_seq, n_kv_heads, head_dim]`
+preallocated device buffer `[n_layers, B, n_kv_heads, max_seq, head_dim]`
 updated with `lax.dynamic_update_slice`, and attention is computed with
-length-masked dense math that XLA fuses well on the MXU. A Pallas
-flash-decode kernel (ops/flash_decode.py) takes over the single-token decode
-path on TPU for long contexts.
+length-masked dense math that XLA fuses. The same function serves prefill
+and single-token decode on every backend.
 
 All math accumulates in float32 regardless of the cache/activation dtype.
 """
@@ -30,7 +29,7 @@ def _per_row(start: jax.Array, batch: int) -> jax.Array:
 
 
 def update_kv_cache(
-    k_cache: jax.Array,   # [B, nk, T, hd] (head-major: DMA-friendly slices)
+    k_cache: jax.Array,   # [B, nk, T, hd] (head-major)
     v_cache: jax.Array,
     k_new: jax.Array,     # [B, S, nk, hd]
     v_new: jax.Array,

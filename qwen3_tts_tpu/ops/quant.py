@@ -1,10 +1,9 @@
-"""Int8/int4 weight quantization + fused dequant-matmul (Pallas TPU kernel).
+"""Int8/int4 weight quantization and the weight-only quantized matmul.
 
-TPU-native counterpart of the reference's quantized-GGUF support (Q5_K_M /
-Q8_0 / Q4_K decoded inside llama.cpp, `src/download.rs:55-101`): weights are
-stored int8 or packed int4, shrinking the HBM bytes that bound
-autoregressive decode, and dequantised on the fly in VMEM so the
-full-precision matrix never exists in HBM.
+Counterpart of the reference's quantized-GGUF support (Q5_K_M / Q8_0 / Q4_K
+decoded inside llama.cpp, `src/download.rs:55-101`): weights are stored
+int8 or packed int4 and widened to the activation dtype right before the
+dot, so the dot itself runs on the tensor cores with f32 accumulation.
 
 Layouts:
   int8: {"q": int8 [in, out], "scale": f32 [out]} — symmetric
@@ -14,17 +13,8 @@ Layouts:
         int8 [in//GROUP4, out] per-(k-group, channel) sub-multipliers,
         "scale": f32 [out]} — Q4_K-class grouped quantization:
         w[k, n] ~= nib(k, n) * m8[k // GROUP4, n] * scale[n], nib in
-        [-7, 7], m8 in [1, 127]. The bias makes in-kernel unpack branchless
-        (`(raw & 0xF) - 8`), and the -8 folds out of the matmul entirely as
-        `8 * rowsum(x_group)` (panel_matmul4).
-
-        Two numerically-documented evaluation orders exist: dequant4_dt
-        (XLA path: integer nib*m8 rounded ONCE through the model dtype,
-        then matmul) and panel_matmul4 (kernels: per-group MXU dot of x
-        against raw nibbles, m8 applied in f32 AFTER the dot — strictly
-        less rounding). In f32 they agree to reduction-order ulp; in bf16
-        they differ within the same deviation class as the fused kernels'
-        other matmuls (see ops/fused_talker.py header).
+        [-7, 7], m8 in [1, 127]. dequant4_dt rounds the integer product
+        nib*m8 once through the model dtype, then the matmul runs.
 
 `linear(x, w)` dispatches on weight type (dense array vs quantized dict) and
 is the single matmul entry point used by the decoder stacks.
@@ -38,8 +28,6 @@ import jax
 import jax.numpy as jnp
 
 Weight = Union[jax.Array, Dict[str, jax.Array]]
-
-_LANE = 128
 
 
 GROUP4 = 128      # int4 k-group size (rows sharing one m8 sub-multiplier)
@@ -98,54 +86,6 @@ def unpack4(q4: jax.Array) -> jax.Array:
     return jnp.concatenate([lo, hi], axis=0).astype(jnp.int8)
 
 
-def panel_matmul4(x_dt: jax.Array, w8: jax.Array, m8: jax.Array,
-                  dt) -> jax.Array:
-    """In-kernel int4 panel matmul: x [Bp, K] @ deq(packed [K//2, pw]).
-
-    Shared by ops/fused_talker.py and ops/fused_predictor.py. The naive
-    per-panel dequant ((nib*m8).astype(dt) then one big dot) costs ~10 VPU
-    passes over K*pw int32 — measured to ERASE the int4 HBM-byte win on
-    v5e (int4 frames slower than int8). This form keeps the VPU work to
-    the branchless biased unpack (~4 passes, no concat/broadcast
-    relayouts) and moves everything else to the MXU:
-
-        y = sum_g m8[g] * ( x_g @ nib_u_g  -  8 * rowsum(x_g) )
-
-    one [Bp, G4] @ [G4, pw] dot per k-group (the same MXU tiles the big
-    dot would issue), with the storage bias folded out via the rowsum and
-    m8 applied per group in f32 AFTER the dot (strictly less rounding
-    than dequant4_dt's round-through-dt; agreement documented there).
-    """
-    Bp = x_dt.shape[0]
-    K2, pw = w8.shape
-    ng = m8.shape[0]
-    ng2 = ng // 2
-    assert K2 == ng2 * GROUP4, (w8.shape, m8.shape)
-
-    # unpack cost is the int4 kernels' VPU bound (the HBM bytes are half of
-    # int8 but every nibble still needs mask/shift/cast lane-ops), so keep
-    # the pass count minimal: after & 0xFF the word is non-negative, so the
-    # arithmetic >> 4 needs no second mask. (uint8 storage would also drop
-    # the widening pass, but Mosaic has no uint8->bf16 cast lowering.)
-    qu = w8.astype(jnp.int32) & 0xFF
-    lo = (qu & 0xF).astype(dt)                 # biased nibbles [0..15]
-    hi = (qu >> 4).astype(dt)
-    mf = m8.astype(jnp.float32)                # [ng, pw]
-    xf = x_dt.astype(jnp.float32)
-    acc = jnp.zeros((Bp, pw), jnp.float32)
-    for gi in range(ng):
-        plane = lo if gi < ng2 else hi
-        r0 = (gi % ng2) * GROUP4
-        xg = x_dt[:, gi * GROUP4:(gi + 1) * GROUP4]
-        part = jax.lax.dot_general(
-            xg, plane[r0:r0 + GROUP4, :], (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-        bias = 8.0 * jnp.sum(xf[:, gi * GROUP4:(gi + 1) * GROUP4],
-                             axis=1, keepdims=True)
-        acc = acc + (part - bias) * mf[gi:gi + 1, :]
-    return acc
-
-
 def dequant4_dt(q4: jax.Array, m8: jax.Array, dt) -> jax.Array:
     """Canonical [K, N] dt weight (per-channel scale NOT applied): the
     integer product nib*m8 (<= 889) rounds once through dt."""
@@ -161,8 +101,8 @@ def dequantize4(w: Dict[str, jax.Array]) -> jax.Array:
 def qmatmul4(x: jax.Array, w: Dict[str, jax.Array]) -> jax.Array:
     """x [..., in] @ int4-grouped [in, out] -> [..., out] f32.
 
-    XLA reference path (kernels stream the same math panel-wise): dequant to
-    x.dtype, matmul with f32 accumulation, per-channel scale at the end.
+    Dequant to x.dtype, matmul with f32 accumulation, per-channel scale at
+    the end.
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
@@ -193,74 +133,18 @@ def quantize_tree(params: Any, min_size: int = 1 << 16) -> Any:
     return jax.tree_util.tree_map(quantize_leaf, params)
 
 
-# ---------------------------------------------------------------- pallas path
-def _qmatmul_kernel(x_ref, q_ref, scale_ref, out_ref):
-    """One output tile: out[M, TN] = (x[M, K] @ deq(q[K, TN])) * scale[TN].
-
-    The int8 tile is converted to bf16 in VMEM — HBM only ever carries int8.
-    """
-    x = x_ref[:]
-    q = q_ref[:].astype(jnp.bfloat16)
-    acc = jnp.dot(x, q, preferred_element_type=jnp.float32)
-    out_ref[:] = acc * scale_ref[:]
-
-
-def _pallas_qmatmul(x: jax.Array, q: jax.Array, scale: jax.Array,
-                    tile_n: int = 512, interpret: bool = False) -> jax.Array:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    M, K = x.shape
-    N = q.shape[1]
-    tile_n = min(tile_n, N)
-    # pad M to the bf16 sublane minimum (16) so tiles are well-formed
-    m_pad = max(16, ((M + 15) // 16) * 16)
-    if m_pad != M:
-        x = jnp.pad(x, ((0, m_pad - M), (0, 0)))
-    scale2 = scale.reshape(1, N)
-    grid = (pl.cdiv(N, tile_n),)
-    out = pl.pallas_call(
-        _qmatmul_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((m_pad, K), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, tile_n), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile_n), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((m_pad, tile_n), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((m_pad, N), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * m_pad * K * N,
-            bytes_accessed=m_pad * K * 2 + K * N + N * 4 + m_pad * N * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(x.astype(jnp.bfloat16), q, scale2)
-    return out[:M]
-
-
-def _use_pallas() -> bool:
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except RuntimeError:
-        return False
-
-
 def qmatmul(x: jax.Array, w: Dict[str, jax.Array]) -> jax.Array:
-    """x [..., in] @ quantized [in, out] -> [..., out] float32."""
+    """x [..., in] @ int8 [in, out] -> [..., out] float32.
+
+    The int8 weight is widened to x.dtype inside the dot's operand, so a
+    bf16 model runs a bf16 GEMM with f32 accumulation and the per-channel
+    scale is applied to the f32 result."""
     q, scale = w["q"], w["scale"]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    K, N = q.shape
-    if (_use_pallas() and K % _LANE == 0 and N % _LANE == 0):
-        out = _pallas_qmatmul(x2, q, scale)
-    else:
-        out = (x2.astype(jnp.float32) @ q.astype(jnp.float32)) * scale
-    return out.reshape(*lead, N)
+    acc = jax.lax.dot_general(x2, q.astype(x2.dtype), (((1,), (0,)), ((), ())),
+                              preferred_element_type=jnp.float32)
+    return (acc * scale).reshape(*lead, q.shape[1])
 
 
 def linear(x: jax.Array, w: Weight) -> jax.Array:

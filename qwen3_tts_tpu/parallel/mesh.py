@@ -4,7 +4,8 @@ The reference has no distributed surface at all (SURVEY.md §2 "Parallelism
 inventory": zero collectives, single process) — this is new first-class
 design: utterance batches are data-parallel over `data`, the talker's
 matmuls tensor-parallel over `model`, with XLA inserting the collectives
-(psum/all-gather) from sharding annotations so they ride ICI.
+(psum/all-gather) from sharding annotations. The cards of one host are
+joined all to all, so the mesh is a plain reshape of the device list.
 """
 
 from __future__ import annotations
@@ -13,7 +14,6 @@ from typing import Optional, Sequence
 
 import jax
 import numpy as np
-from jax.experimental import mesh_utils
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 DATA_AXIS = "data"
@@ -28,11 +28,7 @@ def make_mesh(data: int = 1, model: int = 1,
         devices = jax.devices()[:n]
     if len(devices) < n:
         raise ValueError(f"need {n} devices, have {len(devices)}")
-    try:
-        dev_array = mesh_utils.create_device_mesh((data, model),
-                                                  devices=list(devices))
-    except (ValueError, AssertionError):
-        dev_array = np.asarray(list(devices)).reshape(data, model)
+    dev_array = np.asarray(list(devices)[:n]).reshape(data, model)
     return Mesh(dev_array, (DATA_AXIS, MODEL_AXIS))
 
 
@@ -44,7 +40,7 @@ def make_local_mesh(model: int = 1) -> Mesh:
     """Mesh over THIS process's devices only (host-level DP).
 
     Programs on a local mesh contain no cross-process collectives, so the
-    per-frame decode loop never crosses DCN: each host runs its own fused
+    per-frame decode loop never leaves the host: each host runs its own
     generation program over its own utterances, and hosts coordinate only
     at start/end (barriers, result gathers). This is the scaling design for
     DP across hosts — pure DP needs no per-frame cross-host traffic at all.
@@ -76,9 +72,8 @@ def replicated(mesh: Mesh, tree):
 def initialize_multihost(coordinator: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None) -> None:
-    """`jax.distributed.initialize` wrapper for multi-host pod slices (DCN
-    between hosts, ICI within a slice). No-op when already initialised or
-    single-process."""
+    """`jax.distributed.initialize` wrapper for multi-host runs. No-op for a
+    single process."""
     if num_processes is None or num_processes <= 1:
         return
     jax.distributed.initialize(

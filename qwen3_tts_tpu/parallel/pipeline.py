@@ -1,6 +1,6 @@
 """Talker -> vocoder pipelining: host-side async stage decoupling.
 
-TPU analog of the reference's dedicated decoder thread + mpsc channel
+Analog of the reference's dedicated decoder thread + mpsc channel
 (`src/tts/engine.rs:487-543`): generation keeps dispatching talker/predictor
 steps while a worker thread owns the vocoder dispatches and the host-side
 PCM conversion, so neither stage stalls the other. JAX dispatch is already

@@ -8,7 +8,7 @@ kv-head axis; utterance batches over `data`. Embedding tables and the small
 projection are replicated — they are lookup-bound, not FLOP-bound.
 
 Scaling-book recipe: pick the mesh, annotate shardings, let XLA place the
-collectives on ICI, profile, iterate.
+collectives on the device links, profile, iterate.
 """
 
 from __future__ import annotations

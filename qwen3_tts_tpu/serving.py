@@ -84,9 +84,7 @@ class ServingEngine:
         else:
             self._prefill_fn, self._step_fn = generate.make_stream_fns(
                 tcfg, cfg.predictor, top_k=sc.top_k,
-                frames_per_call=chunk_frames,
-                fused_rows=getattr(engine, "_fused_rows", 0),
-                cache_len=kv_window)
+                frames_per_call=chunk_frames, cache_len=kv_window)
 
     def warmup(self) -> None:
         """Precompile the serving-batch step (per-row slot vector state — a

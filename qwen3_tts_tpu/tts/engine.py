@@ -4,7 +4,7 @@ API mirror of the reference engine (`src/tts/engine.rs:74-240`):
 `TtsEngine(model_dir, ...)`, `load_speakers`, `get_speaker` (vivian
 fallback), `set_sampler_config`, `set_max_steps`, `generate`,
 `generate_with_voice`, `generate_stream`, `create_voice_file` — re-designed
-around fused TPU programs instead of per-token FFI calls.
+around whole-utterance compiled programs instead of per-token FFI calls.
 
 Weight sources, resolved in order:
   * `<model_dir>/qwen3_assets.gguf` + `{talker,predictor,vocoder}.npz`
@@ -43,32 +43,23 @@ from ..utils.voice_file import VoiceFile
 from . import generate, prompt
 
 
-def enable_compilation_cache(cache_dir: Optional[str] = None) -> Optional[str]:
-    """Persistent XLA compilation cache for the product path.
+# fixed in-checkout location (gitignored): the cache key includes the
+# directory, so a path that moves between runs never hits
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".jax_cache")
 
-    The reference pays a dlopen at startup; our equivalent cost is the
-    9-12 s jit compile+warmup of the fused programs. With a persistent
-    cache a RESTARTED process deserializes the executables instead of
-    recompiling, so first-request latency approaches the reference's.
 
-    Resolution: explicit `cache_dir` > an already-configured
-    jax_compilation_cache_dir (e.g. the CLI's --compile-cache, set before
-    engine construction) > env QWEN3_TTS_COMPILE_CACHE ("0"/"" disables)
-    > ~/.cache/qwen3_tts_tpu/xla. Returns the directory in use, or None
-    when disabled or unwritable (a cache must never fail construction).
+def enable_compilation_cache() -> Optional[str]:
+    """Persistent XLA compilation cache for the product path, in
+    `$JAX_COMPILATION_CACHE_DIR` when set, else DEFAULT_CACHE_DIR.
+
+    A restarted process deserializes the compiled generation programs
+    instead of recompiling them. Returns the directory in use, or None when
+    it is unwritable (a cache must never fail construction).
     """
-    if cache_dir is None:
-        configured = jax.config.jax_compilation_cache_dir
-        env = os.environ.get("QWEN3_TTS_COMPILE_CACHE")
-        if configured:
-            cache_dir = configured
-        elif env is not None:
-            if env in ("", "0"):
-                return None
-            cache_dir = env
-        else:
-            cache_dir = os.path.join(
-                os.path.expanduser("~"), ".cache", "qwen3_tts_tpu", "xla")
+    cache_dir = os.environ.get("JAX_COMPILATION_CACHE_DIR") \
+        or DEFAULT_CACHE_DIR
     try:
         os.makedirs(cache_dir, exist_ok=True)
     except OSError as e:
@@ -170,7 +161,7 @@ class TtsEngine:
         else:
             raise ValueError("need model_dir or random_weights=True")
 
-        # non-f32 vocoder dtype (the TPU serving config, e.g.
+        # non-f32 vocoder dtype (e.g.
         # dataclasses.replace(cfg.vocoder, dtype="bfloat16")): cast the
         # transformer trunk once at load; checkpoints always store f32
         self.vocoder_params = vocoder.with_dtype(self.vocoder_params,
@@ -183,17 +174,6 @@ class TtsEngine:
             sdir = cand if os.path.isdir(cand) else "speakers"
         if sdir and os.path.isdir(sdir):
             self.load_speakers(sdir)
-
-        # pre-projected codebook tables for the fused predictor kernel
-        # (ops/fused_predictor.py); usable() gates on backend + geometry, so
-        # tiny/CPU configs skip this and keep the dense XLA path
-        self._fused_rows = 0
-        from ..ops import fused_predictor
-        if fused_predictor.usable(cfg.predictor, 1):
-            ptab, rows = fused_predictor.make_ptab(
-                self.models["assets"], cfg.predictor)
-            self.models["pred_ptab"] = ptab
-            self._fused_rows = rows
 
         self._stream_fns = {}
 
@@ -295,7 +275,7 @@ class TtsEngine:
                batch_sizes: Sequence[int] = (1,)) -> None:
         """Precompile the generation + vocoder programs for the given prompt
         buckets (see prompt.PROMPT_BUCKET) and batch sizes, so the first real
-        request doesn't pay compile latency (~10-20 s on TPU)."""
+        request doesn't pay compile latency."""
         cfg = self.config
         dim = int(self.models["assets"].text_table.shape[1])
         for b in batch_sizes:
@@ -314,8 +294,7 @@ class TtsEngine:
                     self.models, self.vocoder_params, cfg.talker,
                     cfg.predictor, cfg.vocoder, batch, offsets,
                     jax.random.key(0), sc.temperature, sc.top_k, sc.top_p,
-                    bucket, fused_rows=self._fused_rows,
-                    step_cap=jnp.int32(steps))
+                    bucket, step_cap=jnp.int32(steps))
                 jax.block_until_ready((wav, n))
         # streaming path: the make_stream_fns pair used by generate_stream
         # and ServingEngine, plus the chunk-sized vocoder decode, so the
@@ -350,12 +329,11 @@ class TtsEngine:
     def _get_stream_fns(self):
         """Memoised (prefill, step) pair for the current sampler config."""
         sc = self.sampler_config
-        key = (sc.top_k, P.STREAM_CHUNK_FRAMES, self._fused_rows)
+        key = (sc.top_k, P.STREAM_CHUNK_FRAMES)
         if key not in self._stream_fns:
             self._stream_fns[key] = generate.make_stream_fns(
                 self.config.talker, self.config.predictor, top_k=sc.top_k,
                 frames_per_call=P.STREAM_CHUNK_FRAMES,
-                fused_rows=self._fused_rows,
             )
         return self._stream_fns[key]
 
@@ -461,7 +439,7 @@ class TtsEngine:
         of at most `max_chunk_tokens` tokens, every chunk is synthesized
         with the SAME voice as ONE data-parallel batch through the fused
         program (ragged prompts left-padded — long text becomes a DP
-        batch, the TPU-native shape for it), and the waveforms are
+        batch), and the waveforms are
         concatenated in order, with `pause_s` of silence between chunks.
         """
         ids = self.tokenizer.encode(text)
@@ -605,7 +583,6 @@ class TtsEngine:
             self.models, self.vocoder_params, cfg.talker, cfg.predictor,
             cfg.vocoder, batch, offsets, self._seed_key(),
             sc.temperature, sc.top_k, sc.top_p, bucket,
-            fused_rows=self._fused_rows,
             step_cap=jnp.int32(steps),
         )
         wav = np.asarray(wav)
@@ -638,7 +615,7 @@ class TtsEngine:
 
         state = prefill_fn(self.models, batch, offsets, self._seed_key(),
                            sc.temperature, sc.top_p)
-        # vocoding runs on a worker thread (the TPU analog of the reference's
+        # vocoding runs on a worker thread (the analog of the reference's
         # decoder thread, src/tts/engine.rs:487-543): generation keeps
         # dispatching while chunks vocode/convert/callback concurrently
         from ..parallel.pipeline import VocoderPipeline

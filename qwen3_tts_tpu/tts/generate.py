@@ -1,6 +1,6 @@
 """The autoregressive generation loop (talker -> predictor -> feedback).
 
-TPU-native re-design of `run_inference_stream` (`src/tts/engine.rs:445-656`).
+Re-design of `run_inference_stream` (`src/tts/engine.rs:445-656`).
 The reference does, per ~83 ms frame of audio: 1 talker FFI decode, 16
 predictor FFI decodes, a host matvec and 16 host table lookups — that
 serialization is its RTF bottleneck (SURVEY.md §3.2). Here the entire frame —
@@ -33,7 +33,6 @@ from ..assets.tables import Assets
 from ..core import protocol, sampling
 from ..core.config import PredictorConfig, TalkerConfig
 from ..models import decoder, predictor, talker
-from ..ops import fused_predictor
 
 GenState = Dict[str, Any]
 
@@ -72,35 +71,17 @@ def _predict_codes(
     pred_cfg: PredictorConfig,
     h1024: jax.Array,
     code0: jax.Array,
-    fused_rows: int,
     draft: jax.Array | None = None,
 ) -> jax.Array:
-    """Frame expansion, via the single-launch Pallas kernel when eligible.
-
-    The fused path (ops/fused_predictor.py) runs the whole 16-code expansion
-    in one pallas_call (-36..40% per frame on v5e vs the XLA scan,
-    tools/bench_fused_predictor.py); `fused_rows`>0 plus a `pred_ptab` entry
-    in `models` (built by fused_predictor.make_ptab) opts in, and static
-    eligibility (geometry/backend/batch, incl. QWEN3_TTS_NO_FUSED=1) is
-    rechecked here so callers can pass ptab unconditionally.
-    """
+    """Frame expansion: the autoregressive codebook scan, or the Jacobi
+    expansion when QWEN3_TTS_PRED_JACOBI=1 (read at trace time)."""
     if os.environ.get("QWEN3_TTS_PRED_JACOBI") == "1" and draft is not None:
         # Jacobi self-speculative expansion (predictor.frame_codes_jacobi):
         # previous frame's codes as the draft; pass count tracks real-
-        # weight temporal continuity. Trace-time opt-in.
+        # weight temporal continuity.
         return predictor.frame_codes_jacobi(
             models["predictor"], pred_cfg, models["assets"], h1024, code0,
             draft)
-    if (
-        fused_rows > 0
-        and "pred_ptab" in models
-        and fused_predictor.usable(pred_cfg, code0.shape[0],
-                                   models["predictor"])
-    ):
-        return fused_predictor.frame_codes_fused(
-            models["predictor"], pred_cfg, models["pred_ptab"], fused_rows,
-            h1024, code0,
-        )
     return predictor.frame_codes(
         models["predictor"], pred_cfg, models["assets"], h1024, code0
     )
@@ -112,7 +93,6 @@ def _frame_body(
     pred_cfg: PredictorConfig,
     top_k: int,
     state: GenState,
-    fused_rows: int = 0,
     ignore_eos: bool = False,
 ) -> Tuple[GenState, jax.Array, jax.Array]:
     """One frame: sample code_0 -> predictor expand -> feedback decode.
@@ -141,7 +121,7 @@ def _frame_body(
     active = ~done                                            # emits a frame
 
     h1024 = models["assets"].project(state["hidden"].astype(jnp.float32))
-    codes = _predict_codes(models, pred_cfg, h1024, code0, fused_rows,
+    codes = _predict_codes(models, pred_cfg, h1024, code0,
                            draft=state["prev_codes"])
     codes = jnp.where(active[:, None], codes, 0)
 
@@ -173,9 +153,10 @@ def _frame_body(
 def cache_window(talker_cfg: TalkerConfig, prompt_len: int,
                  max_steps: int) -> int:
     """Talker KV extent for a bounded generation: prompt + frame budget,
-    256-aligned (flash/fused kernel block size), capped at max_seq. The
-    default 4096-slot cache is 469 MB/row on the flagship talker — sizing
-    to the actual extent is what lets B=32 batches fit HBM."""
+    256-aligned, capped at max_seq. The default 4096-slot cache is 469
+    MB/row on the flagship talker, and the dense decode attention reads the
+    whole window, so sizing to the actual extent saves both memory and
+    bandwidth."""
     need = prompt_len + max_steps + 1
     return min(talker_cfg.max_seq, -(-need // 256) * 256)
 
@@ -217,8 +198,7 @@ def init_state(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "talker_cfg", "pred_cfg", "top_k", "max_steps", "fused_rows",
-        "ignore_eos"),
+        "talker_cfg", "pred_cfg", "top_k", "max_steps", "ignore_eos"),
 )
 def generate_codes(
     models: Dict[str, Any],
@@ -231,7 +211,6 @@ def generate_codes(
     top_k: int,
     top_p: float,
     max_steps: int,
-    fused_rows: int = 0,
     ignore_eos: bool = False,
     step_cap: jax.Array | None = None,
 ) -> Tuple[jax.Array, jax.Array]:
@@ -263,8 +242,7 @@ def generate_codes(
         state, buf = carry
         step = state["step"]
         state, codes, active = _frame_body(
-            models, talker_cfg, pred_cfg, top_k, state, fused_rows,
-            ignore_eos,
+            models, talker_cfg, pred_cfg, top_k, state, ignore_eos,
         )
         buf = jax.lax.dynamic_update_slice(
             buf, codes[:, None], (jnp.int32(0), step, jnp.int32(0))
@@ -279,7 +257,7 @@ def generate_codes(
     jax.jit,
     static_argnames=(
         "talker_cfg", "pred_cfg", "voc_cfg", "top_k", "max_steps",
-        "fused_rows", "ignore_eos"),
+        "ignore_eos"),
 )
 def generate_audio(
     models: Dict[str, Any],
@@ -294,7 +272,6 @@ def generate_audio(
     top_k: int,
     top_p: float,
     max_steps: int,
-    fused_rows: int = 0,
     ignore_eos: bool = False,
     step_cap: jax.Array | None = None,
 ) -> Tuple[jax.Array, jax.Array]:
@@ -312,8 +289,7 @@ def generate_audio(
 
     codes, n_frames = generate_codes(
         models, talker_cfg, pred_cfg, prompt_embeds, pad_offset, key,
-        temperature, top_k, top_p, max_steps, fused_rows, ignore_eos,
-        step_cap,
+        temperature, top_k, top_p, max_steps, ignore_eos, step_cap,
     )
     B = codes.shape[0]
     # the one-shot extent is exactly max_steps frames: size the vocoder
@@ -327,7 +303,7 @@ def generate_audio(
 
 def make_stream_fns(talker_cfg: TalkerConfig, pred_cfg: PredictorConfig,
                     top_k: int, frames_per_call: int = 1,
-                    fused_rows: int = 0, cache_len: int | None = None):
+                    cache_len: int | None = None):
     """Jitted (prefill_fn, step_fn) for streaming generation.
 
     step_fn advances `frames_per_call` frames per host round-trip (a scan), so
@@ -347,7 +323,7 @@ def make_stream_fns(talker_cfg: TalkerConfig, pred_cfg: PredictorConfig,
     def step_fn(models, state):
         def one(state, _):
             state, codes, active = _frame_body(
-                models, talker_cfg, pred_cfg, top_k, state, fused_rows
+                models, talker_cfg, pred_cfg, top_k, state
             )
             return state, (codes, active)
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import subprocess
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, Optional
@@ -110,3 +111,22 @@ def xla_trace(log_dir: Optional[str]) -> Iterator[None]:
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def card_info() -> str:
+    """The card's name and power limit as nvidia-smi prints them, read by a
+    child process that stays off JAX. Raises when nvidia-smi fails."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def device_record() -> Dict:
+    """The device as JAX reports it: platform, device_kind and count."""
+    import jax
+
+    dev = jax.devices()[0]
+    return {"platform": dev.platform, "kind": dev.device_kind,
+            "count": len(jax.devices())}

@@ -1,4 +1,4 @@
-"""Text tokenization (host side; tokenization never touches the TPU).
+"""Text tokenization (host side; tokenization never touches the device).
 
 Mirror of the reference wrapper (`src/utils/tokenizer.rs:8-36`): the same
 `<model_dir>/tokenizer/tokenizer.json` consumed through the HF `tokenizers`

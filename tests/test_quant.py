@@ -1,4 +1,4 @@
-"""Int8 quantization: numeric bounds, Pallas kernel (interpreter mode),
+"""Int8/int4 quantization: numeric bounds, the plain quantized matmul,
 quantized decoder forward parity and end-to-end generation."""
 
 import numpy as np
@@ -36,18 +36,43 @@ def test_qmatmul_matches_dequant_reference():
     np.testing.assert_allclose(got, want, rtol=5e-2, atol=5e-2)
 
 
-def test_pallas_kernel_interpret_mode():
-    """The TPU kernel, run in interpreter mode, must match the fallback."""
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
+def test_qmatmul_plain_form(dtype):
+    """int8 qmatmul is one dot of x against the weight widened to x.dtype,
+    accumulated in f32, then scaled — on every backend."""
     rng = np.random.default_rng(2)
-    x = jnp.asarray(rng.normal(size=(2, 256)).astype(np.float32))
-    w = jnp.asarray(rng.normal(size=(256, 256)).astype(np.float32) * 0.05)
-    qw = quant.quantize(w)
-    got = np.asarray(quant._pallas_qmatmul(
-        x, qw["q"], qw["scale"], tile_n=128, interpret=True))
-    ref = (np.asarray(x, np.float32).astype(np.float32) @
-           np.asarray(qw["q"], np.float32)) * np.asarray(qw["scale"])
-    # kernel computes in bf16 x int8->bf16; tolerance covers bf16 rounding
-    np.testing.assert_allclose(got, ref, rtol=2e-2, atol=2e-1)
+    x = jnp.asarray(rng.normal(size=(2, 3, 256)), dtype)
+    qw = quant.quantize(jnp.asarray(rng.normal(size=(256, 384)) * 0.05,
+                                    jnp.float32))
+    got = quant.qmatmul(x, qw)
+    assert got.shape == (2, 3, 384) and got.dtype == jnp.float32
+    want = jax.lax.dot_general(
+        x.reshape(6, 256), qw["q"].astype(dtype), (((1,), (0,)), ((), ())),
+        preferred_element_type=jnp.float32) * qw["scale"]
+    np.testing.assert_array_equal(np.asarray(got).reshape(6, 384),
+                                  np.asarray(want))
+    # and it agrees with dequantize + f32: the only rounding is x's dtype
+    ref = (np.asarray(x, np.float32).reshape(6, 256)
+           @ np.asarray(quant.dequantize(qw)))
+    np.testing.assert_allclose(np.asarray(got).reshape(6, 384), ref,
+                               rtol=1e-4, atol=1e-4)
+    assert quant.linear(x, qw).dtype == dtype
+
+
+def test_int4_quantizer_roundtrip():
+    w = 0.3 * jax.random.normal(jax.random.key(0), (512, 384))
+    q = quant.quantize_int4(w)
+    assert q["q4"].shape == (256, 384) and q["m8"].shape == (4, 384)
+    rel = float(jnp.abs(quant.dequantize4(q) - w).mean()
+                / jnp.abs(w).mean())
+    assert rel < 0.2, rel                     # Q4-class quantization error
+    # packing round-trip is exact
+    nib = quant.unpack4(q["q4"])
+    assert int(jnp.max(nib)) <= 7 and int(jnp.min(nib)) >= -7
+    x = jax.random.normal(jax.random.key(1), (4, 512), jnp.float32)
+    y = quant.qmatmul4(x, q)
+    ref = (x @ quant.dequant4_dt(q["q4"], q["m8"], x.dtype)) * q["scale"]
+    assert jnp.allclose(y, ref, rtol=1e-6)
 
 
 def test_quantized_decoder_forward_close_to_dense():

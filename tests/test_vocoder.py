@@ -90,7 +90,7 @@ def test_streaming_equals_oneshot(params):
 
 
 def test_bf16_trunk_matches_f32(params):
-    """bf16 transformer trunk (the TPU serving config, vocoder.with_dtype):
+    """bf16 transformer trunk (vocoder.with_dtype):
     same streaming contract, waveform close to f32, chunked==one-shot still
     holds within bf16 tolerance."""
     import dataclasses

@@ -2,7 +2,7 @@
 """Multi-host weak-scaling harness: audio-s/s at 1 vs 2 processes.
 
 Measures the BASELINE north-star metric (>=90% audio-seconds/s scaling
-1 -> 2 hosts) on the scaling design the pod deployment uses:
+1 -> 2 hosts) on the multi-host scaling design:
 
   * DP ACROSS hosts is HOST-LOCAL — each process builds a mesh over its
     own devices only (parallel/mesh.make_local_mesh) and runs its own
@@ -11,14 +11,14 @@ Measures the BASELINE north-star metric (>=90% audio-seconds/s scaling
     cross-process collective; hosts touch each other only at the start
     barrier and the end-of-run result files.
   * TP stays WITHIN a process — the talker's psum/all-gather collectives
-    ride ICI (intra-host), never DCN.
+    stay on the host's own device links, never the network.
   * TP *across* hosts remains available via the global-mesh path
     (parallel/run.sharded_generate_step, exercised by --mode global and
     by the multichip dryrun) for models too large for one host.
 
 Each host-analog is pinned to its OWN core set with one virtual CPU
-device per core (on a pod: one v5e host's chips — swap the env and the
-same script is the pod harness). The pinning is what makes the analog
+device per core (on a real cluster: one host's cards — swap the env and
+the same script is the cluster harness). The pinning is what makes the analog
 fair: unpinned, the 1-process run owns the whole machine while the
 2-process run fights for it, and the harness measures core contention
 instead of the scaling design (that artifact was round 4's 0.078).

@@ -2,9 +2,8 @@
 """Multi-host smoke: 2 processes x 4 virtual CPU devices, one global mesh.
 
 Validates the `jax.distributed` init path and cross-process sharded
-generation (DP over hosts ~ DCN, TP within a host ~ ICI) without pod
-hardware — the CPU analog of the v5e-16 multi-host serving config
-(BASELINE.json config 5).
+generation (DP over hosts, TP within a host) without a cluster — the CPU
+analog of a multi-host serving config.
 
 Run:  python tools/multihost_smoke.py            # spawns both workers
       python tools/multihost_smoke.py --rank N   # worker entry
@@ -37,7 +36,7 @@ def worker(rank: int, nprocs: int) -> int:
           f"{len(jax.local_devices())}", flush=True)
     assert n == 4 * nprocs, "global device view incomplete"
 
-    # data axis spans hosts (DCN analog), model axis within a host (ICI)
+    # data axis spans hosts, model axis within a host
     mesh = mesh_lib.make_mesh(nprocs, 4)
     cfg = prun.parallel_test_config(max_steps=2)
     models, voc = prun.build_sharded_models(mesh, cfg, seed=0)
